@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import rust_particle_system_tpu as rps
-from rust_particle_system_tpu.core.state import make_state
-from rust_particle_system_tpu.models import SPHFluid
-from rust_particle_system_tpu.render import to_srgb_u8
-from rust_particle_system_tpu.runtime import Simulation
-from rust_particle_system_tpu.utils.png import write_png
+import rust_particle_system as rps
+from rust_particle_system.core.state import make_state
+from rust_particle_system.models import SPHFluid
+from rust_particle_system.render import to_srgb_u8
+from rust_particle_system.runtime import Simulation
+from rust_particle_system.utils.png import write_png
 
 
 def dam_init(key, n, bounds):
@@ -35,7 +35,7 @@ def main():
     ap.add_argument("--frames", type=int, default=240)
     ap.add_argument("--every", type=int, default=10)
     ap.add_argument("--out", default="/tmp/dam")
-    ap.add_argument("--backend", default="grid")
+    ap.add_argument("--backend", default="auto")
     ap.add_argument("--video", default=None, metavar="PATH",
                     help="also stitch the frames into a clip (e.g. /tmp/dam.gif)")
     args = ap.parse_args()
@@ -43,13 +43,11 @@ def main():
     model = SPHFluid.create(n=args.n, backend=args.backend)
     sim = Simulation(model, n=args.n)
     sim.state = dam_init(jax.random.key(0), args.n, model.bounds)
-    if model.backend == "pallas":
-        sim.state = sim.state.with_ids()  # production steps run sorted-resident
     sim.update_params(gravity=500.0, shader_delay=0, damping_factor=0.4)
 
     video = None
     if args.video:
-        from rust_particle_system_tpu.utils.video import VideoWriter
+        from rust_particle_system.utils.video import VideoWriter
 
         video = VideoWriter(args.video, fps=30)
     for f in range(0, args.frames, args.every):

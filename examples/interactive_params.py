@@ -11,11 +11,11 @@ also recompute the kernel norms, exactly like apply_gui_updates).
 
 import numpy as np
 
-import rust_particle_system_tpu as rps
-from rust_particle_system_tpu.models import SPHFluid
-from rust_particle_system_tpu.render import to_srgb_u8
-from rust_particle_system_tpu.runtime import Simulation
-from rust_particle_system_tpu.utils.png import write_png
+import rust_particle_system as rps
+from rust_particle_system.models import SPHFluid
+from rust_particle_system.render import to_srgb_u8
+from rust_particle_system.runtime import Simulation
+from rust_particle_system.utils.png import write_png
 
 # (frame, updates) — a recorded "slider session"
 SCHEDULE = [

@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rust_particle_system_tpu.core.params import make_params
-from rust_particle_system_tpu.core.state import make_state, scatter_init
-from rust_particle_system_tpu.ops.grid import GridSpec, build_grid
-from rust_particle_system_tpu.ops.reference_step import reference_step
-from rust_particle_system_tpu.runtime.debug import (
+from rust_particle_system.core.params import make_params
+from rust_particle_system.core.state import make_state, scatter_init
+from rust_particle_system.ops.grid import GridSpec, build_grid
+from rust_particle_system.ops.reference_step import reference_step
+from rust_particle_system.runtime.debug import (
     print_config,
     validate_grid,
     validate_state,
 )
-from rust_particle_system_tpu.runtime.profiling import PhaseTimer
+from rust_particle_system.runtime.profiling import PhaseTimer
 
 BOUNDS = (-100.0, 100.0, -50.0, 50.0)
 
@@ -82,7 +82,7 @@ def test_simulation_step_is_differentiable():
 
 
 def test_grid_step_is_differentiable(rng):
-    from rust_particle_system_tpu.ops.grid_step import grid_step
+    from rust_particle_system.ops.grid_step import grid_step
 
     spec = GridSpec.from_bounds(BOUNDS, 9.0, capacity=32)
     params = make_params(bounds=BOUNDS, shader_delay=0)

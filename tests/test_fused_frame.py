@@ -1,17 +1,22 @@
-"""Tests for the fused step+render path (planes renderer vs standalone rasterizer)."""
+"""Tests for the one-frame step+render path of the SPH model (run walk in interpret
+mode, then the splat)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rust_particle_system_tpu.core.params import make_params
-from rust_particle_system_tpu.core.state import make_state
-from rust_particle_system_tpu.ops.grid import GridSpec
-from rust_particle_system_tpu.ops.pallas.sph_step import sph_frame_pallas, sph_step_pallas
-from rust_particle_system_tpu.render import RenderSpec, splat
+from rust_particle_system.core.params import make_params
+from rust_particle_system.core.state import make_state
+from rust_particle_system.models import SPHFluid
+from rust_particle_system.render import RenderSpec, splat
 
 BOUNDS = (-96.0, 96.0, -54.0, 54.0)
 RSPEC = RenderSpec(width=192, height=108, max_radius_px=4)
+
+
+def _model():
+    return SPHFluid.create(bounds=BOUNDS, backend="pallas", render_spec=RSPEC,
+                           interpret=True)
 
 
 def _random_state(rng, n, vmax=15.0):
@@ -27,11 +32,11 @@ def test_fused_frame_state_matches_plain_step(rng):
     n = 300
     pos, vel = _random_state(rng, n)
     params = make_params(bounds=BOUNDS, gravity=120.0, shader_delay=0)
-    spec = GridSpec.from_bounds(BOUNDS, cell_size=9.0, capacity=64)
+    model = _model()
 
     state = make_state(pos, vel)
-    want = sph_step_pallas(state, params, spec)
-    got, img = sph_frame_pallas(state, params, spec, RSPEC, bounds_static=BOUNDS)
+    want = model.step(state, params)
+    got, img = jax.jit(model.step_and_render)(state, params)
     np.testing.assert_allclose(np.asarray(got.pos), np.asarray(want.pos), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(np.asarray(got.vel), np.asarray(want.vel), rtol=1e-5, atol=1e-4)
     assert int(got.frame) == int(want.frame)
@@ -43,24 +48,9 @@ def test_fused_frame_image_matches_standalone_splat(rng):
     n = 300
     pos, vel = _random_state(rng, n)
     params = make_params(bounds=BOUNDS, gravity=120.0, shader_delay=0)
-    spec = GridSpec.from_bounds(BOUNDS, cell_size=9.0, capacity=64)
 
     state = make_state(pos, vel)
-    new_state, img = sph_frame_pallas(state, params, spec, RSPEC, bounds_static=BOUNDS)
-    want = np.asarray(
-        splat(new_state.pos, new_state.color, params.particle_size,
-              jnp.asarray(BOUNDS, jnp.float32), RSPEC)
-    )
-    np.testing.assert_allclose(np.asarray(img), want, rtol=1e-3, atol=1e-3)
-
-
-def test_fused_frame_anisotropic_cells(rng):
-    n = 200
-    pos, vel = _random_state(rng, n)
-    params = make_params(bounds=BOUNDS, gravity=80.0, shader_delay=0)
-    spec = GridSpec.from_bounds(BOUNDS, cell_size=9.0, capacity=128, cell_aspect=2)
-    state = make_state(pos, vel)
-    new_state, img = sph_frame_pallas(state, params, spec, RSPEC, bounds_static=BOUNDS)
+    new_state, img = _model().step_and_render(state, params)
     want = np.asarray(
         splat(new_state.pos, new_state.color, params.particle_size,
               jnp.asarray(BOUNDS, jnp.float32), RSPEC)
@@ -72,10 +62,10 @@ def test_fused_frame_warmup_freezes_state_and_renders(rng):
     n = 64
     pos, vel = _random_state(rng, n)
     params = make_params(bounds=BOUNDS, gravity=400.0, shader_delay=3)
-    spec = GridSpec.from_bounds(BOUNDS, cell_size=9.0, capacity=32)
+    frame = jax.jit(_model().step_and_render)
     s = make_state(pos, vel)
     for _ in range(3):
-        s, img = sph_frame_pallas(s, params, spec, RSPEC, bounds_static=BOUNDS)
+        s, img = frame(s, params)
     np.testing.assert_array_equal(np.asarray(s.pos), pos)
     assert int(s.frame) == 3
     # the warm-up image shows the frozen (white) particles
@@ -85,8 +75,8 @@ def test_fused_frame_warmup_freezes_state_and_renders(rng):
 def test_update_params_rejects_radius_above_cell_size():
     import pytest
 
-    from rust_particle_system_tpu.models import SPHFluid
-    from rust_particle_system_tpu.runtime import Simulation
+    from rust_particle_system.models import SPHFluid
+    from rust_particle_system.runtime import Simulation
 
     model = SPHFluid.create(n=64, bounds=BOUNDS, capacity=16, backend="grid")
     sim = Simulation(model, n=64)

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rust_particle_system_tpu.core.params import make_params
-from rust_particle_system_tpu.core.state import make_state
-from rust_particle_system_tpu.ops.grid import GridSpec, build_grid, gather_to_cells, suggest_capacity
-from rust_particle_system_tpu.ops.grid_step import grid_step, grid_physics
-from rust_particle_system_tpu.ops.reference_step import reference_step
+from rust_particle_system.core.params import make_params
+from rust_particle_system.core.state import make_state
+from rust_particle_system.ops.grid import GridSpec, build_grid, gather_to_cells, suggest_capacity
+from rust_particle_system.ops.grid_step import grid_step, grid_physics
+from rust_particle_system.ops.reference_step import reference_step
 
 BOUNDS = (-100.0, 100.0, -50.0, 50.0)
 
@@ -152,3 +152,45 @@ def test_suggest_capacity():
     assert suggest_capacity(1000, BOUNDS, 9.0) >= 8
     spec = GridSpec.from_bounds(BOUNDS, cell_size=9.0, capacity=1)
     assert suggest_capacity(100_000, spec) > 100
+
+
+@pytest.mark.parametrize("num_keys,n", [(1, 1), (7, 50), (40, 300)])
+def test_sorted_runs_match_brute_force(rng, num_keys, n):
+    from rust_particle_system.ops.grid import sorted_runs
+
+    keys = rng.integers(0, num_keys + 1, n).astype(np.int32)  # num_keys = trash
+    perm, sk, starts = (np.asarray(a) for a in sorted_runs(jnp.asarray(keys), num_keys))
+    np.testing.assert_array_equal(sk, keys[perm])
+    assert np.all(np.diff(sk) >= 0)
+    # stable: equal keys keep their input order
+    for k in range(num_keys + 1):
+        assert list(perm[sk == k]) == list(np.nonzero(keys == k)[0])
+    assert starts.shape == (num_keys + 1,)
+    for k in range(num_keys + 1):
+        assert starts[k] == int((keys < k).sum())
+
+
+def test_build_grid_without_capacity_has_no_table(rng):
+    """The run walk's grid (capacity 0): runs and starts only, nothing overflows."""
+    pos, _ = _random_state(rng, 400)
+    pos[:100] = 3.0  # one crowded cell
+    spec = GridSpec.from_bounds(BOUNDS, cell_size=9.0)
+    assert spec.capacity == 0
+    grid = build_grid(spec, jnp.asarray(pos))
+    assert grid.table.shape == (0, 0)
+    assert int(grid.overflow) == 0
+    counts = np.diff(np.asarray(grid.starts))
+    assert counts.sum() == 400 and counts.max() >= 100
+
+
+def test_quantities_unsorted_inverts_the_sort(rng):
+    from rust_particle_system.ops.grid import SPHQuantities
+
+    n = 37
+    perm = jnp.asarray(rng.permutation(n).astype(np.int32))
+    orig = SPHQuantities(jnp.asarray(rng.random(n)), jnp.asarray(rng.random(n)),
+                         jnp.asarray(rng.random((n, 2))), jnp.asarray(rng.random((n, 2))))
+    sorted_q = jax.tree.map(lambda v: v[perm], orig)
+    back = sorted_q.unsorted(perm)
+    for a, b in zip(back, orig):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rust_particle_system_tpu.core import kernels as K
-from rust_particle_system_tpu.core.params import make_params, kernel_norms
+from rust_particle_system.core import kernels as K
+from rust_particle_system.core.params import make_params, kernel_norms
 
 import numpy_oracle as oracle
 

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rust_particle_system_tpu.models import (
+from rust_particle_system.models import (
     Attractor,
     FlowField,
     NBody,
@@ -13,7 +13,7 @@ from rust_particle_system_tpu.models import (
     make_nbody_params,
     nbody_accel,
 )
-from rust_particle_system_tpu.models.flow_field import curl_velocity, make_flow_params
+from rust_particle_system.models.flow_field import curl_velocity, make_flow_params
 
 
 def _in_bounds(pos, bounds):
@@ -107,7 +107,7 @@ def test_sph_model_end_to_end_with_render():
     model = SPHFluid.create(
         n=256, bounds=(-96.0, 96.0, -54.0, 54.0), capacity=32,
         render_spec=__import__(
-            "rust_particle_system_tpu.render", fromlist=["RenderSpec"]
+            "rust_particle_system.render", fromlist=["RenderSpec"]
         ).RenderSpec(width=192, height=108, max_radius_px=4),
     )
     params = model.default_params()._replace(

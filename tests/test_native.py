@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from rust_particle_system_tpu.core.params import make_params
-from rust_particle_system_tpu.core.state import make_state
+from rust_particle_system.core.params import make_params
+from rust_particle_system.core.state import make_state
 
 try:
-    from rust_particle_system_tpu.native import (
+    from rust_particle_system.native import (
         native_sph_step,
         native_state_load,
         native_state_save,
@@ -57,8 +57,8 @@ def test_native_step_matches_jax_grid_step(rng):
 
     import jax
 
-    from rust_particle_system_tpu.ops.grid import GridSpec
-    from rust_particle_system_tpu.ops.grid_step import grid_step
+    from rust_particle_system.ops.grid import GridSpec
+    from rust_particle_system.ops.grid_step import grid_step
 
     sys.path.insert(0, "tests")
     import numpy_oracle as oracle

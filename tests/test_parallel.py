@@ -1,15 +1,17 @@
-"""Multi-chip tests on 8 virtual CPU devices: halo exchange, migration, parity."""
+"""Multi-device tests on 8 virtual CPU devices: ghost exchange, migration, parity.
+
+The band-sharded step runs the Pallas-Triton walk in interpret mode here."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rust_particle_system_tpu.core.params import make_params
-from rust_particle_system_tpu.core.state import make_state
-from rust_particle_system_tpu.ops.grid import GridSpec
-from rust_particle_system_tpu.ops.grid_step import grid_step
-from rust_particle_system_tpu.parallel import (
+from rust_particle_system.core.params import make_params
+from rust_particle_system.core.state import make_state
+from rust_particle_system.ops.pallas.sph_walk import walk_step
+from rust_particle_system.parallel import (
+    check_diags,
     make_band_mesh,
     make_shard_spec,
     make_sharded_render,
@@ -17,10 +19,19 @@ from rust_particle_system_tpu.parallel import (
     shard_state,
     unshard_state,
 )
-from rust_particle_system_tpu.parallel.sharded_step import insert_rows, pack_rows
-from rust_particle_system_tpu.render import RenderSpec, splat
+from rust_particle_system.parallel.sharded_step import insert_rows, pack_rows
+from rust_particle_system.render import RenderSpec, splat
 
 BOUNDS = (-100.0, 100.0, -50.0, 50.0)
+
+
+def _step(sspec, n_bands):
+    return make_sharded_step(sspec, make_band_mesh(n_bands), interpret=True)
+
+
+def _single(state, params, sspec):
+    """The one-device walk on the same (band-padded) grid."""
+    return walk_step(state, params, sspec.grid, interpret=True)
 
 
 def _random_state(rng, n, vmax=15.0):
@@ -57,29 +68,27 @@ def test_pack_overflow_counted(rng):
     assert int(buf_valid.sum()) == 8
 
 
-@pytest.mark.parametrize("n_bands", [1, 4])
+@pytest.mark.parametrize("n_bands", [1, 2, 4])
 def test_sharded_step_matches_single_device(rng, n_bands):
-    """Band-sharded step == single-device grid step, on 8 fake CPU devices."""
+    """Band-sharded step == single-device walk step, on 8 fake CPU devices."""
     n = 200
     pos, vel = _random_state(rng, n)
     params = make_params(bounds=BOUNDS, gravity=120.0, shader_delay=0)
 
-    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands,
-                            capacity=64, slack=4.0)
-    mesh = make_band_mesh(n_bands)
-    step = make_sharded_step(sspec, mesh)
+    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands, slack=4.0)
+    step = _step(sspec, n_bands)
 
     state = make_state(pos, vel)
     sstate, dropped = shard_state(state, sspec)
     assert dropped == 0
     sstate, diags = step(sstate, params)
     assert int(diags["band_violations"]) == 0
-    assert int(diags["grid_overflow"]) == 0
+    assert int(diags["ghost_dropped"]) == 0
     assert int(diags["migration_send_dropped"]) == 0
     assert int(diags["live_particles"]) == n
 
     # single-device reference on the same (padded) grid
-    ref = grid_step(state, params, sspec.grid)
+    ref = _single(state, params, sspec)
 
     got = unshard_state(sstate)
     # order differs; match particles by initial position via nearest association:
@@ -95,21 +104,39 @@ def test_sharded_step_matches_single_device(rng, n_bands):
     np.testing.assert_allclose(got_vel, ref_vel, rtol=1e-4, atol=5e-2)
 
 
+def test_ghost_buffer_overflow_counted_and_raised(rng):
+    """Boundary-row ghosts beyond ghost_cap are dropped, counted and raised on."""
+    n, n_bands = 300, 2
+    pos, vel = _random_state(rng, n, vmax=1.0)
+    params = make_params(bounds=BOUNDS, shader_delay=0)
+    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands, slack=4.0,
+                            ghost_cap=4)
+    sstate, _ = shard_state(make_state(pos, vel), sspec)
+    _, diags = _step(sspec, n_bands)(sstate, params)
+    vals = {k: int(v) for k, v in diags.items()}
+    # Each band's boundary row next to the cut holds ~n / gh * gw / gw particles.
+    row = sspec.rows_per_band
+    cy = np.floor((pos[:, 1] + 50.0) / 9.0).astype(int)
+    shipped = int(((cy == row - 1) | (cy == row)).sum())
+    assert vals["ghost_dropped"] >= shipped - 2 * sspec.ghost_cap > 0
+    with pytest.raises(ValueError, match="ghost_cap"):
+        check_diags(diags)
+    assert vals["live_particles"] == n  # ghosts are copies: nothing is lost
+
+
 def test_sharded_multi_frame_conservation_and_parity(rng):
     n, n_bands, frames = 160, 4, 6
     pos, vel = _random_state(rng, n, vmax=25.0)
     params = make_params(bounds=BOUNDS, gravity=200.0, shader_delay=0)
-    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands,
-                            capacity=64, slack=6.0)
-    mesh = make_band_mesh(n_bands)
-    step = make_sharded_step(sspec, mesh)
+    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands, slack=6.0)
+    step = _step(sspec, n_bands)
 
     state = make_state(pos, vel)
     sstate, _ = shard_state(state, sspec)
     ref = state
     for _ in range(frames):
         sstate, diags = step(sstate, params)
-        ref = grid_step(ref, params, sspec.grid)
+        ref = _single(ref, params, sspec)
         assert int(diags["live_particles"]) == n  # conservation every frame
         assert int(diags["migration_send_dropped"]) == 0
         assert int(diags["migration_recv_dropped"]) == 0
@@ -128,10 +155,8 @@ def test_migration_actually_crosses_bands():
     params = make_params(bounds=BOUNDS, gravity=0.0, shader_delay=0,
                          pressure_multiplier=0.0, near_density_multiplier=0.0,
                          viscosity_strength=0.0, target_density=0.0)
-    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=4, n_bands=n_bands,
-                            capacity=8, slack=16.0)
-    mesh = make_band_mesh(n_bands)
-    step = make_sharded_step(sspec, mesh)
+    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=4, n_bands=n_bands, slack=16.0)
+    step = _step(sspec, n_bands)
 
     # one particle just below the band-1/band-2 boundary, moving up fast
     rows_per_band = sspec.rows_per_band
@@ -153,8 +178,7 @@ def test_sharded_render_matches_single_device(rng):
     pos, vel = _random_state(rng, n, vmax=5.0)
     state = make_state(pos, vel)
     params = make_params(bounds=BOUNDS, shader_delay=0)
-    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands, capacity=32,
-                            slack=6.0)
+    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands, slack=6.0)
     mesh = make_band_mesh(n_bands)
     rspec = RenderSpec(width=200, height=100, max_radius_px=4)
     render = make_sharded_render(mesh, rspec)
@@ -173,9 +197,8 @@ def test_sharded_step_warmup_identity(rng):
     n, n_bands = 64, 2
     pos, vel = _random_state(rng, n)
     params = make_params(bounds=BOUNDS, gravity=400.0, shader_delay=2)
-    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands, capacity=32,
-                            slack=6.0)
-    step = make_sharded_step(sspec, make_band_mesh(n_bands))
+    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands, slack=6.0)
+    step = _step(sspec, n_bands)
     sstate, _ = shard_state(make_state(pos, vel), sspec)
     p0 = np.asarray(sstate.pos).copy()
     for _ in range(2):
@@ -187,10 +210,7 @@ def test_sharded_step_warmup_identity(rng):
 def test_fast_particle_migration_rounds(rng):
     """A particle crossing >1 band/frame: 1 round -> raising violation; enough
     rounds (CFL guard) -> clean migration and conservation (VERDICT r1 #8)."""
-    from rust_particle_system_tpu.parallel import (
-        check_diags,
-        migration_rounds_for_speed,
-    )
+    from rust_particle_system.parallel import migration_rounds_for_speed
 
     n_bands = 4
     n = 40
@@ -204,9 +224,8 @@ def test_fast_particle_migration_rounds(rng):
 
     def run_one(mig_rounds):
         sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands,
-                                capacity=64, slack=8.0, mig_rounds=mig_rounds)
-        mesh = make_band_mesh(n_bands)
-        step = make_sharded_step(sspec, mesh)
+                                slack=8.0, mig_rounds=mig_rounds)
+        step = _step(sspec, n_bands)
         sstate, dropped = shard_state(make_state(jnp.asarray(pos), jnp.asarray(vel)), sspec)
         assert dropped == 0
         sstate, diags = step(sstate, params)
@@ -227,36 +246,31 @@ def test_fast_particle_migration_rounds(rng):
     check_diags(d2, expect_particles=n)  # no raise
 
 
-def test_multislice_mesh_ordering_and_parity(rng):
-    """Multi-slice band mesh (SURVEY §2.3 DCN entry): device order keeps each
-    slice's bands contiguous so one boundary per slice pair rides DCN; the step
-    itself is mesh-order agnostic (same collectives).  On CPU devices (no
-    slice_index) the mesh degenerates to make_band_mesh and the sharded step
-    produces identical trajectories on either mesh."""
-    from rust_particle_system_tpu.parallel import (
-        dcn_boundary_bands,
-        make_multislice_band_mesh,
-    )
+def test_shard_spec_derives_ghost_cap_and_tile_width():
+    from rust_particle_system.ops.pallas.sph_walk import tile_width
 
-    mesh = make_multislice_band_mesh()
-    assert mesh.devices.size == len(jax.devices())
-    assert dcn_boundary_bands(mesh) == []  # CPU: single "slice"
+    n, bands = 1_000_000, 4
+    bounds = (-960.0, 960.0, -540.0, 540.0)
+    sspec = make_shard_spec(bounds, 9.0, n, bands, slack=1.5)
+    assert sspec.grid.capacity == 0
+    assert sspec.grid.gh % bands == 0 and sspec.rows_per_band * bands == sspec.grid.gh
+    # a boundary row holds ~n / 121 particles; the buffer takes 2 x slack of that
+    assert sspec.ghost_cap >= 2 * 1.5 * n / 121
+    assert sspec.ghost_cap % 8 == 0
+    assert sspec.tile_cells == tile_width(n, 214 * 121)
+    assert make_shard_spec(bounds, 9.0, n, bands, ghost_cap=100).ghost_cap == 100
 
-    n, n_bands = 160, 4
-    pos, vel = _random_state(rng, n)
-    params = make_params(bounds=BOUNDS, gravity=120.0, shader_delay=0)
-    sspec = make_shard_spec(BOUNDS, cell_size=9.0, n=n, n_bands=n_bands,
-                            capacity=64, slack=4.0)
-    state = make_state(jnp.asarray(pos), jnp.asarray(vel))
 
-    results = []
-    for m in (make_band_mesh(n_bands),
-              jax.sharding.Mesh(mesh.devices.ravel()[:n_bands], ("bands",))):
-        step = make_sharded_step(sspec, m)
-        sstate, dropped = shard_state(state, sspec)
-        assert dropped == 0
-        for _ in range(2):
-            sstate, diags = step(sstate, params)
-            jax.block_until_ready(sstate.pos)
-        results.append(np.asarray(unshard_state(sstate).pos))
-    np.testing.assert_allclose(results[0], results[1], atol=1e-6)
+def test_graft_dryrun_multichip_on_cpu_mesh(capsys):
+    """The integration entry point: 3 sharded frames + render on 4 virtual devices."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "__graft_entry__.py")
+    spec = importlib.util.spec_from_file_location("graft_entry", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.dryrun_multichip(4)
+    assert "dryrun_multichip(4): ok" in capsys.readouterr().out
+    fn, (state, params) = mod.entry()
+    assert jax.jit(fn)(state, params).pos.shape == state.pos.shape

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rust_particle_system_tpu.core.params import make_params
-from rust_particle_system_tpu.core.state import make_state, scatter_init
-from rust_particle_system_tpu.ops.reference_step import reference_step
+from rust_particle_system.core.params import make_params
+from rust_particle_system.core.state import make_state, scatter_init
+from rust_particle_system.ops.reference_step import reference_step
 
 import numpy_oracle as oracle
 

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rust_particle_system_tpu.core.params import make_params
-from rust_particle_system_tpu.models import Attractor, SPHFluid
-from rust_particle_system_tpu.runtime import Simulation, checkpoint, run_frames
-from rust_particle_system_tpu.runtime.cli import main as cli_main
-from rust_particle_system_tpu.utils.png import write_png
+from rust_particle_system.core.params import make_params
+from rust_particle_system.models import Attractor, SPHFluid
+from rust_particle_system.runtime import Simulation, checkpoint, run_frames
+from rust_particle_system.runtime.cli import main as cli_main
+from rust_particle_system.utils.png import write_png
 
 
 def test_run_frames_equals_stepwise():
@@ -154,7 +154,7 @@ def test_interactive_session_script(tmp_path):
     """The stdin-driven interactive loop (egui analog): set/run/render/save."""
     import io
 
-    from rust_particle_system_tpu.runtime.interactive import Session
+    from rust_particle_system.runtime.interactive import Session
 
     buf = io.StringIO()
     s = Session(model_name="attractor", n=64, out=buf)
@@ -217,61 +217,40 @@ def test_update_params_rejects_out_of_range_values():
 
 
 def test_trajectory_restores_original_order_for_resident_states():
-    # A resident state reorders rows every frame; trajectory snapshots must track
-    # particle i at traj[:, i] regardless (ADVICE r2).
-    from rust_particle_system_tpu.runtime.simulation import run_frames_trajectory
+    # Trajectory snapshots must track particle i at traj[:, i]: the run walk sorts
+    # by cell every frame and must hand rows back in their original order.
+    from rust_particle_system.runtime.simulation import run_frames_trajectory
 
-    model = SPHFluid.create(n=96, bounds=(-96.0, 96.0, -54.0, 54.0), capacity=16,
-                            backend="pallas")
+    model = SPHFluid.create(n=96, bounds=(-96.0, 96.0, -54.0, 54.0),
+                            backend="pallas", interpret=True)
     params = model.default_params()._replace(shader_delay=jnp.int32(0))
-    state = model.init(jax.random.key(0), 96)  # plane-resident (idsf channel)
-    assert int(state.lost) == 0
+    state = model.init(jax.random.key(0), 96)
 
     sr, traj = run_frames_trajectory(model.step, state, params, 4)
-    # oracle: step a copy frame by frame, restoring order at each snapshot
+    # oracle: step a copy frame by frame
     s = model.init(jax.random.key(0), 96)
     step = jax.jit(model.step)
     for f in range(4):
         s = step(s, params)
-        want = np.asarray(s.traj_positions())
-        np.testing.assert_allclose(np.asarray(traj[f]), want, rtol=1e-6, atol=1e-6)
-
-
-def test_checkpoint_loads_pre_ids_state_into_resident_model(tmp_path):
-    # Round-1 checkpoints have no state/ids leaf; loading against a resident
-    # state_like must re-derive identity as the row index (ADVICE r2).
-    state_old = SPHFluid.create(n=64, bounds=(-96.0, 96.0, -54.0, 54.0),
-                                capacity=16).init(jax.random.key(3), 64)
-    assert state_old.ids is None
-    p = tmp_path / "old.npz"
-    checkpoint.save(str(p), state_old)
-
-    state_like = state_old.with_ids()
-    loaded = checkpoint.load(str(p), state_like)
-    np.testing.assert_array_equal(np.asarray(loaded.ids), np.arange(64))
-    np.testing.assert_allclose(np.asarray(loaded.pos), np.asarray(state_old.pos))
+        np.testing.assert_allclose(np.asarray(traj[f]), np.asarray(s.pos),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_pallas_render_falls_back_for_incompatible_geometry():
-    # max_radius_px > MARGIN and non-integral pixel strides must route through the
-    # general splat instead of tripping the plane rasterizer's static asserts.
-    from rust_particle_system_tpu.render import RenderSpec
+    # The pallas backend renders through the general splat for any geometry:
+    # a stamp radius wider than the sprite and non-integral pixel strides alike.
+    from rust_particle_system.render import RenderSpec, splat
 
-    big_radius = SPHFluid.create(
-        n=48, bounds=(-96.0, 96.0, -54.0, 54.0), capacity=16, backend="pallas",
-        render_spec=RenderSpec(width=192, height=108, max_radius_px=6),
-    )
-    params = big_radius.default_params()
-    state = big_radius.init(jax.random.key(0), 48)
-    img = big_radius.render(state, params)  # would raise AssertionError before
-    assert img.shape == (108, 192, 4)
-
-    skewed = SPHFluid.create(
-        n=48, bounds=(-96.0, 96.0, -54.0, 54.0), capacity=16, backend="pallas",
-        render_spec=RenderSpec(width=200, height=100, max_radius_px=2),
-    )
-    img2 = skewed.render(state, params)
-    assert img2.shape == (100, 200, 4)
+    for rspec in (RenderSpec(width=192, height=108, max_radius_px=6),
+                  RenderSpec(width=200, height=100, max_radius_px=2)):
+        model = SPHFluid.create(n=48, bounds=(-96.0, 96.0, -54.0, 54.0),
+                                backend="pallas", render_spec=rspec, interpret=True)
+        params = model.default_params()
+        state = model.init(jax.random.key(0), 48)
+        img = model.render(state, params)
+        assert img.shape == (rspec.height, rspec.width, 4)
+        want = splat(state.pos, state.color, params.particle_size, params.bounds, rspec)
+        np.testing.assert_array_equal(np.asarray(img), np.asarray(want))
 
 
 def test_video_export_gif_and_webp(tmp_path):
@@ -279,7 +258,7 @@ def test_video_export_gif_and_webp(tmp_path):
     # stitched into an animated clip.  GIF and WebP ride PIL; no ffmpeg needed.
     from PIL import Image
 
-    from rust_particle_system_tpu.utils.video import VideoWriter, write_video
+    from rust_particle_system.utils.video import VideoWriter, write_video
 
     frames = [
         np.full((32, 48, 4), v, np.uint8) for v in (0, 64, 128, 192)
@@ -321,7 +300,7 @@ def test_interactive_video_command(tmp_path):
 
     from PIL import Image
 
-    from rust_particle_system_tpu.runtime.interactive import Session
+    from rust_particle_system.runtime.interactive import Session
 
     out = io.StringIO()
     s = Session("attractor", n=32, out=out)
@@ -335,7 +314,7 @@ def test_interactive_video_command(tmp_path):
 def test_ansi_frame_shape_and_colors():
     import numpy as np
 
-    from rust_particle_system_tpu.utils.term import ansi_frame
+    from rust_particle_system.utils.term import ansi_frame
 
     img = np.zeros((54, 96, 3), np.uint8)
     img[:27] = (255, 0, 0)   # top half red
@@ -352,7 +331,7 @@ def test_ansi_frame_shape_and_colors():
 def test_interactive_watch_command():
     import io
 
-    from rust_particle_system_tpu.runtime.interactive import Session
+    from rust_particle_system.runtime.interactive import Session
 
     out = io.StringIO()
     s = Session("attractor", n=32, out=out)
@@ -360,3 +339,36 @@ def test_interactive_watch_command():
     text = out.getvalue()
     assert "▀" in text          # half-block frames were drawn
     assert "watched 4 frames" in text
+
+
+def test_walk_model_simulation_stats_without_capacity():
+    """The walk model's grid has no slot table: stats report true occupancy and
+    zero overflow however crowded a cell gets."""
+    model = SPHFluid.create(n=200, bounds=(-96.0, 96.0, -54.0, 54.0),
+                            backend="pallas", interpret=True)
+    sim = Simulation(model, n=200)
+    sim.state = sim.state._replace(pos=sim.state.pos.at[:80].set(1.0))
+    sim.update_params(shader_delay=0)
+    sim.run(2)
+    stats = sim.stats()
+    assert model.grid.capacity == 0
+    assert stats["grid_overflow"] == 0
+    assert stats["grid_max_occupancy"] >= 2
+    assert stats["frame"] == 2
+
+
+def test_cli_pallas_backend_refuses_cpu():
+    import pytest
+
+    with pytest.raises(RuntimeError, match="interpret=True"):
+        cli_main(["--model", "sph", "--backend", "pallas", "--n", "32", "--frames", "1"])
+
+
+def test_time_chained_chains_and_returns_state():
+    from rust_particle_system.runtime.timing import time_chained, time_fn
+
+    step = jax.jit(lambda x: x + 1.0)
+    per, out = time_chained(step, jnp.zeros(3), 5)
+    assert per > 0.0
+    np.testing.assert_array_equal(np.asarray(out), np.full(3, 5.0))
+    assert time_fn(step, jnp.zeros(3), reps=3, warm=1) > 0.0
